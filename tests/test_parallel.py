@@ -63,6 +63,27 @@ def test_partition_plan_covers_mesh():
             assert plan.owned_mask[od, plan.send_idx[od, pos]]
 
 
+def test_rcb_splits_ties_along_lowest_axis():
+    """Recursive coordinate bisection of a 2:1:1 box into four parts
+    gives four congruent x-slabs even when centroid rounding makes the
+    y extent of one half a hair longer than its x extent; congruent
+    slabs keep the device-uniform banded face plan."""
+    from waiwera_tpu.parallel.partition import _rcb
+
+    nx, ny, nz = 8, 4, 4
+    k, j, i = np.meshgrid(
+        np.arange(nz), np.arange(ny), np.arange(nx), indexing="ij"
+    )
+    cent = np.stack(
+        [50.0 * (i + 0.5), 50.0 * (j + 0.5) * (1.0 + 1e-15),
+         20.0 * (k + 0.5)], axis=-1,
+    ).reshape(-1, 3)
+    parts = _rcb(cent, np.arange(len(cent)), 4)
+    for d, ids in enumerate(parts):
+        assert len(ids) == nx * ny * nz // 4
+        assert set(i.reshape(-1)[ids]) == {2 * d, 2 * d + 1}
+
+
 def test_p2p_rounds_cover_halo():
     """The edge-colored ppermute rounds deliver exactly the halo:
     simulating the rounds on host must reproduce every device's halo
@@ -329,7 +350,7 @@ def test_distributed_timestepper_end_to_end(tmp_path):
     stepping + retry ladder) + tracer aux solves + sources + HDF5
     output, vs the same model single-device. Histories must agree to
     solver tolerance and output must come back in natural cell order
-    (VERDICT r1 item 1; reference runs the same model at any np)."""
+    (the reference runs the same model at any np)."""
     import h5py
 
     from waiwera_tpu.sim.simulation import Simulation

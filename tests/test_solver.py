@@ -512,11 +512,10 @@ def test_cpr_mg_preconditioner():
 
 
 def test_band_plan_pack_no_padding_slack():
-    """Regression: when the cell count is an exact multiple of the
-    2048-lane tile and there are no boundary ghosts (n == n_pad), the
-    final band segment's q->p zero-padding extends past n_pad; the pack
-    must clamp it instead of crashing with a negative pad
-    (advisor r4 high finding, ops/dia.py bands_from_blocks)."""
+    """Regression: with no boundary ghosts the band width equals the
+    cell count (n == n_pad), so the final band segment's q->p
+    zero-padding extends past n_pad; the pack must clamp it instead of
+    crashing with a negative pad (ops/dia.py bands_from_blocks)."""
     from waiwera_tpu.mesh.rect import rectangular_mesh
     from waiwera_tpu.sim.simulation import Simulation
     from waiwera_tpu.ops import dia
@@ -533,7 +532,7 @@ def test_band_plan_pack_no_padding_slack():
         mesh=mesh,
     )
     system = sim.system
-    assert system.mesh.num_cells == 2048  # == n_pad: zero slack
+    assert system.mesh.num_cells == system.dia.band_pos.shape[1]
     assert system.band_plan is not None
 
     lhs0, _, _ = sim.lhs_at(sim.y0, sim.region0)
@@ -555,8 +554,7 @@ def test_band_plan_pack_no_padding_slack():
 
 def _minc_hybrid_sim():
     """Small MINC model whose Jacobian takes the hybrid banded+tail
-    path (shared by the hybrid-operator and interleaved-domain
-    tests)."""
+    path (shared by the hybrid-operator tests)."""
     from waiwera_tpu.mesh.rect import rectangular_mesh
     from waiwera_tpu.sim.simulation import Simulation
 
@@ -635,14 +633,22 @@ def test_hybrid_face_plan_minc():
         )
 
 
-def test_interleaved_solver_ops_hybrid(monkeypatch):
-    """The interleaved-domain solve must also cover hybrid MINC
-    structures: band SpMV in the Pallas layout + tail gathers/scatters
-    by flat interleaved index, matching the natural-layout hybrid
-    operator (pallas interpret mode on CPU)."""
+def _abs_matvec(mat, x):
+    """|A| |x| from assembled BSR data: the scale of each row sum's
+    rounding error."""
+    return np.asarray(
+        bsr.BSRMatrix(structure=mat.structure, data=jnp.abs(mat.data))
+        .matvec(jnp.abs(x))
+    )
+
+
+def test_hybrid_operator_f32_matches_bsr():
+    """The MINC hybrid operator in f32 (band SpMV plus the indexed
+    tail of fracture-matrix faces) agrees with the f64 BSR gather
+    matvec to 1e-5 of |A||x| per row (f32 rounding of short row sums
+    is below 2e-6 of it)."""
     from waiwera_tpu.solver.system import MethodCoeffs
 
-    monkeypatch.setenv("WAIWERA_TPU_PALLAS", "on")
     sim = _minc_hybrid_sim()
     system = sim.system
     assert system.hybrid is not None
@@ -656,29 +662,95 @@ def test_interleaved_solver_ops_hybrid(monkeypatch):
         sim.y0, sim.region0, sim.rock, coeffs,
         jnp.asarray(0.0), jnp.asarray(1e4),
     )
-    il = system.interleaved_solver_ops(parts, "bjacobi", jnp.float32)
-    assert il is not None
-    mv_il, pc_il, enc, dec = il
-    mv, pc = system.linear_operator_from_parts(
-        parts, "bjacobi", dtype=jnp.float32
+    mat = system.assemble_bsr(parts)
+    mv, _ = system.linear_operator_from_parts(
+        parts, "none", dtype=jnp.float32
     )
-    nrows = system.mesh.num_cells
     v = jnp.asarray(
         np.random.default_rng(23)
-        .standard_normal((nrows, system.npv))
-        .astype(np.float32)
+        .standard_normal((system.mesh.num_cells, system.npv))
     )
-    np.testing.assert_allclose(
-        np.asarray(dec(enc(v))), np.asarray(v), rtol=0, atol=0
+    y = np.asarray(mv(v.astype(jnp.float32)))
+    assert y.dtype == np.float32
+    y_ref = np.asarray(mat.matvec(v))
+    err = np.abs(y - y_ref)
+    assert np.all(err <= 1e-5 * _abs_matvec(mat, v) + 1e-30)
+
+
+def _check_dia_matvec_f32(eos_name, primary):
+    """f32 band SpMV of a real Jacobian against the f64 BSR gather
+    matvec, per row relative to |A||x|."""
+    from waiwera_tpu.mesh.rect import rectangular_mesh
+    from waiwera_tpu.ops import dia
+    from waiwera_tpu.sim.simulation import Simulation
+    from waiwera_tpu.solver.system import MethodCoeffs
+
+    nx, ny, nz = 5, 4, 3
+    mesh = rectangular_mesh(
+        [10.0] * nx, [10.0] * ny, [5.0] * nz, origin=[0, 0, -15.0]
     )
-    np.testing.assert_allclose(
-        np.asarray(dec(mv_il(enc(v)))), np.asarray(mv(v)),
-        rtol=2e-5, atol=2e-4,
+    sim = Simulation(
+        {
+            "eos": {"name": eos_name},
+            "initial": {"primary": primary, "region": 1},
+            "boundaries": [
+                {
+                    "primary": primary,
+                    "region": 1,
+                    "faces": {
+                        "cells": list(range(nx * ny)),
+                        "normal": [0.0, 0.0, 1.0],
+                    },
+                }
+            ],
+        },
+        mesh=mesh,
     )
-    np.testing.assert_allclose(
-        np.asarray(dec(pc_il(enc(v)))), np.asarray(pc(v)),
-        rtol=2e-5, atol=2e-4,
+    system = sim.system
+    assert system.dia is not None
+    lhs0, _, _ = sim.lhs_at(sim.y0, sim.region0)
+    coeffs = MethodCoeffs(
+        c_lhs=jnp.asarray(1.0), dt_eff=jnp.asarray(1e4), const=-lhs0
     )
+    _, _, _, _, mat = system.residual_and_jacobian(
+        sim.y0, sim.region0, sim.rock, coeffs,
+        jnp.asarray(0.0), jnp.asarray(1e4),
+    )
+    assert mat.structure.block_size == len(primary)
+    x = jnp.asarray(
+        np.random.default_rng(5).standard_normal(
+            (system.mesh.num_cells, len(primary))
+        )
+    )
+    m32 = dia.to_dia(mat, system.dia, dtype=jnp.float32)
+    y32 = np.asarray(dia.jnp_matvec(m32, x.astype(jnp.float32)))
+    assert y32.dtype == np.float32
+    err = np.abs(y32 - np.asarray(mat.matvec(x)))
+    assert np.all(err <= 1e-5 * _abs_matvec(mat, x) + 1e-30)
+
+
+_F32_MATVEC_CASES = [
+    ("we", [2.0e6, 120.0]),
+    ("wge", [2.0e6, 120.0, 1.0e5]),
+    ("wsge", [2.0e6, 120.0, 0.05, 1.0e5]),
+]
+
+
+@pytest.mark.parametrize("eos_name,primary", _F32_MATVEC_CASES)
+def test_dia_matvec_f32_matches_bsr_f64(eos_name, primary):
+    """Block sizes 2, 3 and 4: the f32 band SpMV (the Krylov operator
+    under the mixed-precision policy) agrees with the f64 BSR
+    reference to 1e-5 of |A||x| per row. Rounding of a row sum of 7b
+    f32 products is below (7b+2)*2^-24 < 2e-6 of it; products taken
+    in TF32 (2^-11) would fail."""
+    _check_dia_matvec_f32(eos_name, primary)
+
+
+@pytest.mark.gpu
+def test_dia_matvec_f32_on_gpu(gpu_device):
+    """The same comparison compiled for the card."""
+    for eos_name, primary in _F32_MATVEC_CASES:
+        _check_dia_matvec_f32(eos_name, primary)
 
 
 def test_band_plan_none_on_permuted_mesh():
@@ -696,97 +768,6 @@ def test_band_plan_none_on_permuted_mesh():
         system.dia, fc, np.asarray(system.mesh.is_ghost)
     )
     assert plan is None
-
-
-def test_dia_pallas_kernel_interpret():
-    """Pallas band kernel (interpret mode on CPU) matches the jnp
-    path in f32."""
-    from waiwera_tpu.ops import dia
-    from waiwera_tpu.solver.system import MethodCoeffs
-
-    sim = _rect_system(5, 4, 3)
-    system = sim.system
-    lhs0, _, _ = sim.lhs_at(sim.y0, sim.region0)
-    coeffs = MethodCoeffs(
-        c_lhs=jnp.asarray(1.0), dt_eff=jnp.asarray(1e4), const=-lhs0
-    )
-    _, _, _, _, mat = system.residual_and_jacobian(
-        sim.y0, sim.region0, sim.rock, coeffs,
-        jnp.asarray(0.0), jnp.asarray(1e4),
-    )
-    m32 = dia.to_dia(mat, system.dia, dtype=jnp.float32)
-    n = system.mesh.num_cells
-    x = np.random.default_rng(5).standard_normal((n, 2)).astype(np.float32)
-    xj = jnp.asarray(x)
-    y_ref = np.asarray(dia.jnp_matvec(m32, xj))
-    y_pal = np.asarray(dia.pallas_matvec(m32, xj))
-    np.testing.assert_allclose(y_pal, y_ref, rtol=2e-5, atol=2e-4)
-
-
-def test_interleaved_solver_ops_match_natural(monkeypatch):
-    """The interleaved-domain Krylov path (encode once, band SpMV +
-    block-Jacobi in the Pallas layout, decode once) must reproduce the
-    natural-layout operator/preconditioner and reach the same solution
-    (pallas interpret mode on CPU)."""
-    from waiwera_tpu.ops import dia
-    from waiwera_tpu.solver import krylov
-    from waiwera_tpu.solver.system import MethodCoeffs
-
-    monkeypatch.setenv("WAIWERA_TPU_PALLAS", "on")
-    sim = _rect_system(6, 5, 4)
-    system = sim.system
-    lhs0, _, _ = sim.lhs_at(sim.y0, sim.region0)
-    coeffs = MethodCoeffs(
-        c_lhs=jnp.asarray(1.0), dt_eff=jnp.asarray(1e4), const=-lhs0
-    )
-    r, _, _, _, parts = system.residual_and_jacobian_parts(
-        sim.y0, sim.region0, sim.rock, coeffs,
-        jnp.asarray(0.0), jnp.asarray(1e4),
-    )
-    il = system.interleaved_solver_ops(parts, "bjacobi", jnp.float32)
-    assert il is not None
-    mv_il, pc_il, enc, dec = il
-    mv, pc = system.linear_operator_from_parts(
-        parts, "bjacobi", dtype=jnp.float32
-    )
-    n = system.mesh.num_cells
-    v = jnp.asarray(
-        np.random.default_rng(11)
-        .standard_normal((n, system.npv))
-        .astype(np.float32)
-    )
-    # encode/decode round trip
-    np.testing.assert_allclose(
-        np.asarray(dec(enc(v))), np.asarray(v), rtol=0, atol=0
-    )
-    # operator and preconditioner agree with the natural layout
-    np.testing.assert_allclose(
-        np.asarray(dec(mv_il(enc(v)))), np.asarray(mv(v)),
-        rtol=2e-5, atol=2e-4,
-    )
-    np.testing.assert_allclose(
-        np.asarray(dec(pc_il(enc(v)))), np.asarray(pc(v)),
-        rtol=2e-5, atol=2e-4,
-    )
-    # end-to-end bcgs solve in the interleaved domain
-    b32 = r.astype(jnp.float32)
-    res_il = krylov.bicgstab(
-        mv_il, enc(b32), precond=pc_il, rtol=1e-6, max_iterations=400
-    )
-    res_nat = krylov.bicgstab(
-        mv, b32, precond=pc, rtol=1e-6, max_iterations=400
-    )
-    assert bool(res_il.converged)
-    np.testing.assert_allclose(
-        np.asarray(dec(res_il.x)), np.asarray(res_nat.x),
-        rtol=5e-3, atol=5e-4,
-    )
-    # ineligible configurations return None
-    assert system.interleaved_solver_ops(parts, "lu", jnp.float32) is None
-    assert (
-        system.interleaved_solver_ops(parts, "bjacobi", jnp.float64)
-        is None
-    )
 
 
 def test_dia_dilu_preconditioner():

@@ -1,6 +1,6 @@
-"""waiwera_tpu: a TPU-native geothermal flow simulation framework.
+"""waiwera_tpu: a JAX geothermal flow simulation framework.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of Waiwera
+A from-scratch JAX/XLA rebuild of the capabilities of Waiwera
 (parallel geothermal flow simulator): multi-phase, multi-component
 subsurface flow on unstructured finite-volume meshes with Newton-Krylov
 implicit timestepping.

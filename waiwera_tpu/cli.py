@@ -59,6 +59,9 @@ def run_json(filename: str, echo_log: bool = False, platform=None,
     if platform:
         jax.config.update("jax_platforms", platform)
     jax.config.update("jax_enable_x64", True)
+    from waiwera_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     # pre-read parallel.devices BEFORE any backend initialisation:
     # Simulation(config) initialises the JAX backend, after which
     # jax_num_cpu_devices has no effect and a config-driven
@@ -72,7 +75,13 @@ def run_json(filename: str, echo_log: bool = False, platform=None,
             "JAX_PLATFORMS", ""
         ).split(",")[0]
         if resolved in ("", "cpu"):
-            jax.config.update("jax_num_cpu_devices", eff_devices)
+            try:
+                jax.config.update("jax_num_cpu_devices", eff_devices)
+            except RuntimeError:
+                # backends already initialised (an in-process caller):
+                # the CPU device count is fixed, and DistributedSystem
+                # reports too few devices itself
+                pass
 
     from waiwera_tpu.sim.simulation import Simulation
     from waiwera_tpu.sim.timestepper import Timestepper
@@ -141,7 +150,7 @@ def run_json(filename: str, echo_log: bool = False, platform=None,
 def main(argv=None):
     parser = argparse.ArgumentParser(
         prog="waiwera-tpu",
-        description="TPU-native geothermal flow simulator",
+        description="JAX geothermal flow simulator",
     )
     parser.add_argument("filename", help="JSON model input file")
     parser.add_argument(
@@ -151,7 +160,7 @@ def main(argv=None):
         "--echo-log", action="store_true", help="echo log to stdout"
     )
     parser.add_argument(
-        "--platform", default=None, help="jax platform override (cpu/tpu)"
+        "--platform", default=None, help="jax platform override (cpu/gpu)"
     )
     parser.add_argument(
         "--devices", type=int, default=0,

@@ -9,9 +9,7 @@ signed gravity normal keeps the flux kernel exactly invariant), then
 sorted by (column offset, row). On rectilinear meshes in natural cell
 order this makes each Jacobian band's faces one contiguous,
 row-periodic slice, so DIA band packing is pure reshape/pad instead of
-a 33M-element gather (ops.dia.band_plan; TPU gathers run at a tiny
-fraction of HBM bandwidth — measured 1.5 s/Newton iteration on the
-512k-cell flagship before this change). `face_perm`/`face_sign` map
+a 33M-element gather (ops.dia.band_plan). `face_perm`/`face_sign` map
 canonical faces back to the host mesh's original order and orientation
 for natural-order flux output (the AO analogue for faces,
 dm_utils.F90:843-935).

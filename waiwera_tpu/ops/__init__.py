@@ -1,7 +1,9 @@
-"""TPU-optimised compute kernels (XLA-friendly layouts + Pallas).
+"""Sparse compute kernels in XLA-friendly layouts.
 
+- dia: gather-free banded (DIA) SpMV and preconditioners for
+  rectilinear meshes
 - ell: scatter-free block-sparse SpMV (ELL layout)
-- stencil: Pallas DIA/stencil SpMV for rectilinear meshes
+- mg: geometric multigrid on the pressure block (CPR)
 """
 
 from waiwera_tpu.ops.dia import (  # noqa: F401

@@ -12,39 +12,35 @@ sparsity turns SpMV into
     y[i] = sum_d  B_d[i] @ x[i + d]
 
 i.e. static shifts + batched small matmuls: no index gather at all.
-This is the TPU-shaped replacement for PETSc's MATBAIJ MatMult on
-structured meshes; unstructured meshes fall back to the ELL gather
-path (ops.ell).
+This replaces PETSc's MATBAIJ MatMult on structured meshes;
+unstructured meshes fall back to the ELL gather path (ops.ell).
 
 Band data is packed once per Jacobian as [D, b*b, N_pad] with cells on
-the minor (lane) axis — the gather from assembled BSR data produces
-this layout directly, so per-matvec work is pure shifts + multiply
--adds. Two executions of the same layout:
-- a pure-jnp path (shift via pad/slice; XLA fuses the band
-  multiply-adds into one memory-bound pass) — works on any backend;
-- a Pallas TPU kernel (pallas_matvec): per output tile, band tiles
-  stream through VMEM and ONE lane-aligned x window is DMA'd, each
-  band's shifted view being a static in-VMEM slice.
+the minor axis — the gather from assembled BSR data produces this
+layout directly, so per-matvec work is pure shifts + multiply-adds,
+which XLA fuses into memory-bound passes that stream each band once
+with coalesced reads. N_pad >= N leaves room for band segments whose
+zero padding runs past the last row.
 
 The same band layout powers a DILU/block-SGS preconditioner
 (dia_dilu) whose triangular sweeps are shift-based fixed-point
-iterations — the TPU answer to PETSc's ASM/ILU(0) default
+iterations — a data-parallel stand-in for PETSc's ASM/ILU(0) default
 (timestepper.F90:1743-1835) without a sequential SpTRSV.
 """
 
 from __future__ import annotations
 
-import os
-from typing import NamedTuple, Optional, Sequence
+from typing import NamedTuple, Optional
 
 import numpy as np
 import jax
 import jax.numpy as jnp
+from jax import lax
 
 Array = jnp.ndarray
 
 MAX_BANDS = 16
-_TILE = 2048  # pallas lanes per grid step (multiple of 128)
+_HIGHEST = lax.Precision.HIGHEST  # f32 contractions in full f32, not TF32
 
 
 class DIAStructure(NamedTuple):
@@ -65,20 +61,7 @@ class DIAMatrix(NamedTuple):
 
     def matvec(self, x: Array) -> Array:
         """y = A @ x, x and y of shape [N, b]."""
-        if _use_pallas(self.bands.dtype):
-            return pallas_matvec(self, x)
         return jnp_matvec(self, x)
-
-
-def _use_pallas(dtype) -> bool:
-    env = os.environ.get("WAIWERA_TPU_PALLAS", "auto").lower()
-    if env in ("0", "off", "false"):
-        return False
-    if dtype != jnp.float32:
-        return False  # the kernel is f32-only (TPU-native precision)
-    if env in ("1", "on", "true", "force"):
-        return True
-    return jax.default_backend() == "tpu"
 
 
 def dia_structure(
@@ -99,9 +82,8 @@ def dia_structure(
     if len(offs) > max_bands:
         return None
     n = structure.num_rows
-    n_pad = -(-n // _TILE) * _TILE
     nnzb = len(rows)
-    band_pos = np.full((len(offs), n_pad), nnzb, dtype=np.int64)
+    band_pos = np.full((len(offs), n), nnzb, dtype=np.int64)
     idx = np.nonzero(live)[0]
     k = np.searchsorted(offs, cols[idx].astype(np.int64) - rows[idx])
     band_pos[k, rows[idx]] = idx
@@ -117,10 +99,10 @@ class BandPlan(NamedTuple):
     """Host-built recipe for packing per-face Jacobian blocks straight
     into DIA bands with reshapes/pads only — no gather/scatter.
 
-    TPU gathers run at a tiny fraction of HBM bandwidth, so the
-    BSR-assemble-then-gather pack (bsr.assemble + to_dia) costs ~1.5 s
-    per Newton iteration on a 512k-cell Jacobian (measured r4) while
-    this path is pure data movement (~ms). Valid when, for every
+    The alternative, a BSR scatter (bsr.assemble) followed by the band
+    gather (to_dia), reads and writes every block twice more through
+    indexed memory traffic; this path is pure streaming data
+    movement. Valid when, for every
     nonzero band offset d, the contributing faces form one contiguous
     slice of the face array whose rows advance in a periodic
     pattern r0 + (i//q)*p + i%q — true for rectilinear meshes in
@@ -196,8 +178,7 @@ def bands_from_blocks(
     """Pack element-major block parts (diag2 [b*b, N], per-face
     off-diagonal lr2/rl2 [b*b, F]) into the band layout
     [D, b*b, N_pad] by static slices/reshapes/pads on the LAST axis —
-    no gathers, no [*, b, b] intermediates (which tile to a 57x
-    padded layout on TPU)."""
+    no gathers and no [*, b, b] intermediates."""
     b = dia.block_size
     bb = b * b
     n = dia.num_rows
@@ -265,9 +246,7 @@ class FacePlan(NamedTuple):
     """Periodic-slice recipe for face<->cell data movement on canonical
     (offset,row)-sorted faces: cell->face gathers and face->cell
     scatter-adds become static slices/reshapes/pads instead of 10s-of-
-    millions-of-element gathers (measured r4: face-state gathers +
-    inflow scatter were ~0.85 s of the ~0.95 s f64 RHS on the
-    512k-cell flagship).
+    millions-of-element indexed gathers and scatter-adds.
 
     entries: per positive band in face order: (d, f0, S, q, p, r0) —
     faces f0..f0+S*q connect cells (r0 + m*p + j) -> (.. + d).
@@ -355,8 +334,7 @@ def face_plan_direct(
     This is what makes MINC meshes ride the fast path: the fracture
     lattice's bands and the matrix-chain bands are (piecewise)
     periodic, and only the fracture->matrix coupling faces land in
-    the tail (r4: the pure-ELL MINC step ran ~200x slower than the
-    banded flagship)."""
+    the tail."""
     a = np.asarray(face_cells[:, 0], np.int64)
     b = np.asarray(face_cells[:, 1], np.int64)
     is_ghost = np.asarray(is_ghost)
@@ -412,13 +390,12 @@ def hybrid_band_structures(
 
     The returned DIAStructure carries no band_pos gather table (the
     hybrid path never packs from BSR data); only offsets / num_rows /
-    block_size / padded width are meaningful."""
-    n_pad = -(-num_rows // _TILE) * _TILE
-    while any(
-        max(r0, r0 + d) + S * p > n_pad
-        for (d, f0, S, q, p, r0) in fp.entries
-    ):
-        n_pad += _TILE
+    block_size / padded width are meaningful. The width covers every
+    segment's zero padding past the last row."""
+    n_pad = max(
+        [num_rows]
+        + [max(r0, r0 + d) + S * p for (d, f0, S, q, p, r0) in fp.entries]
+    )
     by_off = {}
     for e in fp.entries:
         by_off.setdefault(e[0], []).append(e)
@@ -570,7 +547,9 @@ def dia_block_jacobi(dinv: Array, dtype=None):
         dinv = dinv.astype(dtype)
 
     def apply(r: Array) -> Array:
-        return jnp.einsum("nij,nj->ni", dinv, r.astype(dinv.dtype))
+        return jnp.einsum(
+            "nij,nj->ni", dinv, r.astype(dinv.dtype), precision=_HIGHEST
+        )
 
     return apply
 
@@ -586,7 +565,7 @@ def dia_line_pc_em(m: DIAMatrix, dtype=None, offset: int = None):
     Rationale: the reference's default ASM/ILU(0) (timestepper.F90:
     1743-1835) propagates information across the whole domain per
     application, which is what keeps BiCGStab iteration counts low; a
-    sequential SpTRSV is TPU-hostile, but the tridiagonal of ONE mesh
+    sequential SpTRSV is not data-parallel, but the tridiagonal of ONE mesh
     direction IS solvable exactly with Z scan steps of [b*b, p]
     batched small ops — and on the flagship the z direction carries
     the largest transmissibility (k_z A_z / d_z) plus the gravity
@@ -705,7 +684,7 @@ def _shift_last(x: Array, d: int) -> Array:
 def dia_dilu_em(m: DIAMatrix, sweeps: int = 3, dtype=None):
     """dia_dilu on element-major band data: factorisation and both
     triangular sweeps stay in [b*b, N] layout (the batch-first block
-    arrays the original used tile to 57x padded buffers on TPU)."""
+    arrays of dia_dilu are never materialised)."""
     from waiwera_tpu.solver.smallblocks import (
         apply_blocks_em,
         invert_blocks_em,
@@ -813,7 +792,9 @@ def dia_dilu(
         # inv(D_{i+d}) and A_{i+d, i} both gathered by shifting rows
         inv_s = _shift_rows(inv0, d)
         bu_s = _shift_rows(band_block(kt), d)  # A_{i+d, i}
-        corr = jnp.einsum("nij,njl,nlm->nim", bl, inv_s, bu_s)
+        corr = jnp.einsum(
+            "nij,njl,nlm->nim", bl, inv_s, bu_s, precision=_HIGHEST
+        )
         # out-of-range shifts contribute zero blocks already
         dmod = dmod - corr
     dinv = invert_blocks(dmod)
@@ -840,7 +821,7 @@ def dia_dilu(
         return jnp.stack(out, axis=1)
 
     def dsolve(v: Array) -> Array:
-        return jnp.einsum("nij,nj->ni", dinv_a, v)
+        return jnp.einsum("nij,nj->ni", dinv_a, v, precision=_HIGHEST)
 
     def apply(r: Array) -> Array:
         r = r.astype(bands_a.dtype)
@@ -855,307 +836,3 @@ def dia_dilu(
         return z
 
     return apply
-
-
-# ---------------------------------------------------------------------
-# Pallas TPU kernel (8-way interleaved band layout)
-# ---------------------------------------------------------------------
-#
-# Cells are mapped to a (sublane, lane) coordinate: cell c = q*8 + s
-# lives at sublane s, lane q. Every array (bands, x, y) uses this
-# layout, so each band's multiply-add is a fully-packed [8, T] VPU op
-# (the earlier cells-on-lanes-only layout ran 1-D [T] vectors at 1/8
-# VPU utilisation and needed sublane-padded x DMAs at 8/b bandwidth
-# waste). A shift by band offset d decomposes into a lane shift by
-# d//8 plus a sublane rotation by d%8 — and the far mesh bands
-# (±nx, ±nx·ny) are almost always multiples of 8, i.e. pure
-# (free) lane shifts. x windows arrive as pipelined BlockSpec streams
-# (one per distinct block offset), so Pallas double-buffers them with
-# the band stream; there are no manual DMAs and no alignment hazards.
-
-_Q = 8  # sublane interleave factor (f32 sublane tile)
-
-
-class PallasDIAMatrix(NamedTuple):
-    """Band matrix pre-packed in the interleaved Pallas layout.
-
-    bands8[(k*b + ii)*b + j, s, q] = block element (ii, j) of band k
-    at cell q*8+s. Built once per Jacobian (to_dia_pallas) and reused
-    across all Krylov iterations.
-    """
-
-    offsets: tuple
-    bands8: Array  # [D*b*b*8, n_pad//8]
-    block_size: int
-    num_rows: int
-    n_pad: int
-
-    def matvec(self, x: Array) -> Array:
-        return _pallas_matvec8(self, x)
-
-    def matvec_il(self, x_il: Array) -> Array:
-        """SpMV staying in the interleaved layout (il_encode /
-        il_decode at the Krylov-solve boundary only)."""
-        return _pallas_matvec8_il(self, x_il)
-
-
-def to_dia_pallas(
-    mat, dia: DIAStructure, dtype=jnp.float32
-) -> PallasDIAMatrix:
-    """Pack assembled BSR data directly into the interleaved Pallas
-    band layout (one fused gather, like to_dia)."""
-    b = dia.block_size
-    bb = b * b
-    D = len(dia.offsets)
-    n_pad = dia.band_pos.shape[1]
-    nq = n_pad // _Q
-    flat = jnp.concatenate(
-        [mat.data.reshape(-1), jnp.zeros((bb,), mat.data.dtype)]
-    )
-    # pos_il[k, s, q] = band_pos[k, q*8+s]
-    pos_il = dia.band_pos.reshape(D, nq, _Q).transpose(0, 2, 1)
-    idx = (
-        pos_il[:, None, :, :] * bb
-        + jnp.arange(bb, dtype=jnp.int32)[None, :, None, None]
-    )  # [D, bb, 8, nq]
-    bands8 = flat[idx].reshape(D * bb * _Q, nq)
-    if dtype is not None:
-        bands8 = bands8.astype(dtype)
-    return PallasDIAMatrix(
-        offsets=dia.offsets,
-        bands8=bands8,
-        block_size=b,
-        num_rows=dia.num_rows,
-        n_pad=n_pad,
-    )
-
-
-def _interleave_bands(m: DIAMatrix) -> PallasDIAMatrix:
-    """Relayout a natural-order DIAMatrix (tests / ad-hoc use; one
-    extra pass over the band data — production packs directly via
-    to_dia_pallas)."""
-    D = len(m.offsets)
-    b = m.block_size
-    n_pad = m.bands.shape[2]
-    nq = n_pad // _Q
-    bands8 = (
-        m.bands.reshape(D * b * b, nq, _Q)
-        .transpose(0, 2, 1)
-        .reshape(D * b * b * _Q, nq)
-        .astype(jnp.float32)
-    )
-    return PallasDIAMatrix(
-        offsets=m.offsets,
-        bands8=bands8,
-        block_size=b,
-        num_rows=m.num_rows,
-        n_pad=n_pad,
-    )
-
-
-def _x_block_plan(offsets: Sequence[int], tq: int):
-    """Which x blocks (relative block offsets, in units of the [*, tq]
-    lane tile) each band offset needs, and how to slice them.
-
-    For band offset d: dq = d // 8 lane shift, ds = d % 8 sublane
-    rotation. The needed lanes are [i*tq + dq, +tq) (+1 lane when the
-    sublane rotation wraps), i.e. blocks r0 = dq // tq and r0+1 when
-    the intra-block offset a = dq % tq is nonzero or ds > 0.
-
-    Returns (rel_blocks, per_offset) with per_offset[k] = (r0, a, ds).
-    """
-    rel = set()
-    per = []
-    for d in offsets:
-        d = int(d)
-        dq = d // _Q
-        ds = d - _Q * dq
-        r0 = dq // tq
-        a = dq - r0 * tq
-        rel.add(r0)
-        if a > 0 or ds > 0:
-            rel.add(r0 + 1)
-        per.append((r0, a, ds))
-    return sorted(rel), per
-
-
-def _dia_kernel8(offsets, per_offset, rel_blocks, b: int, tq: int):
-    """Kernel factory for the interleaved layout. All refs are VMEM
-    blocks fed by the Pallas pipeline: bands [D*b*b*8, tq], one x ref
-    [b*8, tq] per relative block, y [b*8, tq]."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    r_index = {r: i for i, r in enumerate(rel_blocks)}
-    interpret = jax.default_backend() != "tpu"
-
-    def _roll_sub(v, ds):
-        # output row s holds source row (s + ds) % 8
-        if interpret:
-            return jnp.roll(v, -ds, axis=0)
-        # pltpu.roll requires a non-negative shift: -ds == 8-ds (mod 8)
-        return pltpu.roll(v, _Q - ds, axis=0)
-
-    def kernel(bands_ref, *rest):
-        xrefs = rest[:-1]
-        y_ref = rest[-1]
-
-        def xslice(j, r0, a, ds):
-            """x values of component j shifted by band offset d, as a
-            fully packed [8, tq] chunk in cell-interleaved order."""
-            lo = xrefs[r_index[r0]][j * _Q : (j + 1) * _Q, :]
-            if a == 0 and ds == 0:
-                return lo
-            hi = xrefs[r_index[r0 + 1]][j * _Q : (j + 1) * _Q, :]
-            w = jnp.concatenate([lo, hi], axis=1)  # [8, 2*tq]
-            if ds == 0:
-                return w[:, a : a + tq]
-            # sublane rotation: output row s reads source row
-            # (s + ds) % 8; rows that wrapped advance one lane
-            v0 = _roll_sub(w[:, a : a + tq], ds)
-            v1 = _roll_sub(w[:, a + 1 : a + 1 + tq], ds)
-            srow = jax.lax.broadcasted_iota(jnp.int32, (_Q, tq), 0)
-            return jnp.where(srow < _Q - ds, v0, v1)
-
-        acc = [jnp.zeros((_Q, tq), jnp.float32) for _ in range(b)]
-        for k, (r0, a, ds) in enumerate(per_offset):
-            for j in range(b):
-                xs = xslice(j, r0, a, ds)
-                for ii in range(b):
-                    row = ((k * b + ii) * b + j) * _Q
-                    acc[ii] = acc[ii] + bands_ref[row : row + _Q, :] * xs
-        for ii in range(b):
-            y_ref[ii * _Q : (ii + 1) * _Q, :] = acc[ii]
-
-    return kernel
-
-
-def il_encode(x: Array, n_pad: int) -> Array:
-    """Natural [n, b] -> interleaved [b*8, n_pad//8] (f32), zero
-    padding rows n..n_pad. The Krylov solvers can run ENTIRELY in this
-    layout (encode b once, decode x once): all padding stays zero
-    under matvec/block-Jacobi/axpy, so dot products and norms are
-    exact, and the per-iteration relayout that dominated the natural-
-    layout matvec (569 us/apply vs ~200 us kernel time on the 512k-
-    cell flagship) disappears."""
-    n, b = x.shape
-    nq = n_pad // _Q
-    xp = jnp.zeros((n_pad, b), jnp.float32)
-    xp = jax.lax.dynamic_update_slice(
-        xp, x.astype(jnp.float32), (0, 0)
-    )
-    return xp.T.reshape(b, nq, _Q).transpose(0, 2, 1).reshape(b * _Q, nq)
-
-
-def il_decode(y: Array, n: int) -> Array:
-    """Interleaved [b*8, nq] -> natural [n, b]."""
-    bq, nq = y.shape
-    b = bq // _Q
-    yn = y.reshape(b, _Q, nq).transpose(0, 2, 1).reshape(b, nq * _Q)
-    return yn[:, :n].T
-
-
-def il_block_jacobi_em(dinv2: Array, n_pad: int, dtype=None):
-    """Block-Jacobi apply in the interleaved layout: z_il = D^{-1} r_il
-    with prefactored element-major inverse diagonal blocks [b*b, N].
-    The blocks are interleaved once at build time; each application is
-    b*b fused multiply-adds on [8, nq] tiles (fuses into the
-    surrounding Krylov vector ops)."""
-    bb, ncols = dinv2.shape
-    b = int(round(bb ** 0.5))
-    nq = n_pad // _Q
-    if dtype is not None:
-        dinv2 = dinv2.astype(dtype)
-    dpad = jnp.pad(dinv2.astype(jnp.float32),
-                   ((0, 0), (0, n_pad - ncols)))
-    d_il = dpad.reshape(bb, nq, _Q).transpose(0, 2, 1).reshape(
-        bb * _Q, nq
-    )
-
-    def apply(r_il: Array) -> Array:
-        outs = []
-        for i in range(b):
-            acc = None
-            for j in range(b):
-                k = i * b + j
-                t = (
-                    d_il[k * _Q : (k + 1) * _Q, :]
-                    * r_il[j * _Q : (j + 1) * _Q, :]
-                )
-                acc = t if acc is None else acc + t
-            outs.append(acc)
-        return jnp.concatenate(outs, axis=0)
-
-    return apply
-
-
-def _pallas_matvec8_il(m: PallasDIAMatrix, x_il: Array) -> Array:
-    """Band SpMV on an already-interleaved x [b*8, nq] -> y [b*8, nq]
-    (no layout conversion; the production Krylov path)."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    offsets = m.offsets
-    D = len(offsets)
-    b = m.block_size
-    n_pad = m.n_pad
-    tq = _TILE // _Q  # lanes per block (multiple of 128)
-    nq = n_pad // _Q
-
-    rel_blocks, per_offset = _x_block_plan(offsets, tq)
-    hb = max(max(abs(r) for r in rel_blocks), 1)
-    pad_q = hb * tq
-
-    # zero halo both sides for the shifted x windows
-    xt = jnp.zeros((b * _Q, nq + 2 * pad_q), jnp.float32)
-    xt = jax.lax.dynamic_update_slice(
-        xt, x_il.astype(jnp.float32), (0, pad_q)
-    )
-
-    kernel = _dia_kernel8(offsets, per_offset, rel_blocks, b, tq)
-    grid = (nq // tq,)
-    interpret = jax.default_backend() != "tpu"
-
-    def x_spec(r):
-        return pl.BlockSpec(
-            (b * _Q, tq),
-            lambda i, r=r: (0, i + r + hb),
-            memory_space=pltpu.VMEM,
-        )
-
-    # x64 mode poisons Pallas's grid/index plumbing with i64 values
-    # Mosaic cannot legalize; the kernel itself is pure f32/int32
-    with jax.enable_x64(False):
-        y = pl.pallas_call(
-            kernel,
-            out_shape=jax.ShapeDtypeStruct((b * _Q, nq), jnp.float32),
-            grid=grid,
-            in_specs=[
-                pl.BlockSpec(
-                    (D * b * b * _Q, tq),
-                    lambda i: (0, i),
-                    memory_space=pltpu.VMEM,
-                )
-            ]
-            + [x_spec(r) for r in rel_blocks],
-            out_specs=pl.BlockSpec(
-                (b * _Q, tq), lambda i: (0, i), memory_space=pltpu.VMEM
-            ),
-            interpret=interpret,
-        )(m.bands8, *([xt] * len(rel_blocks)))
-    return y
-
-
-def _pallas_matvec8(m: PallasDIAMatrix, x: Array) -> Array:
-    """Natural-layout wrapper: encode x, run the interleaved kernel,
-    decode y."""
-    n = x.shape[0]
-    return il_decode(_pallas_matvec8_il(m, il_encode(x, m.n_pad)), n)
-
-
-def pallas_matvec(m, x: Array) -> Array:
-    """Band SpMV on TPU (f32). Accepts a pre-packed PallasDIAMatrix
-    (production path) or a natural-order DIAMatrix (relayout on the
-    fly — tests / ad-hoc use)."""
-    if isinstance(m, PallasDIAMatrix):
-        return _pallas_matvec8(m, x)
-    return _pallas_matvec8(_interleave_bands(m), x)

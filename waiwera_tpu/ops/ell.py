@@ -1,7 +1,7 @@
 """Scatter-free block SpMV via an ELL (padded fixed-width row) layout.
 
 The BSR matvec does `y.at[rows].add(block @ x[col])` — an XLA
-scatter-add, which TPUs execute poorly (serialised updates). Mesh
+scatter-add, whose colliding updates serialise. Mesh
 matrices have bounded row degree (1 diagonal + one block per cell
 face, ~7 for hexahedral meshes), so the static sparsity converts to
 ELL: every block row padded to the max degree K. SpMV then becomes
@@ -27,6 +27,7 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import jax.numpy as jnp
+from jax import lax
 
 Array = jnp.ndarray
 
@@ -53,6 +54,7 @@ class ELLMatrix(NamedTuple):
             "nkij,nkj->ni",
             self.data,
             xg.astype(self.data.dtype),
+            precision=lax.Precision.HIGHEST,
         )
 
 
@@ -109,8 +111,7 @@ def to_ell(mat, ell: ELLStructure, dtype=None) -> ELLMatrix:
     """Convert assembled BSR data to ELL layout (one gather).
 
     dtype: optionally down-cast (e.g. float32 for the inner Krylov
-    solve — TPUs emulate f64 in software, so the memory- and
-    compute-bound SpMV runs several times faster in f32).
+    solve, which halves the bytes the memory-bound SpMV streams).
     """
     b = ell.block_size
     data = jnp.concatenate(

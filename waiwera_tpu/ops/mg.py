@@ -2,9 +2,9 @@
 
 The reference keeps Krylov iteration counts low with ASM/ILU(0)
 (timestepper.F90:1743-1835), whose sequential triangular solves are
-TPU-hostile; block-Jacobi is TPU-shaped but needs O(100s) of BiCGStab
-iterations per solve at rtol 1e-5 on the flagship (the dominant step
-cost, BENCH r4/r5). Reservoir simulators attack exactly this with
+not data-parallel; block-Jacobi is data-parallel but can need O(100s)
+of BiCGStab iterations per solve at rtol 1e-5 on large models.
+Reservoir simulators attack exactly this with
 CPR — constrained pressure residual: the long-range elliptic error
 lives in the pressure coupling, so precondition with
 
@@ -15,7 +15,7 @@ where A_pp is the pressure-pressure scalar sub-matrix (block element
 (0,0) of every DIA band) and the second stage is plain block-Jacobi
 smoothing of the remaining local/hyperbolic error.
 
-Everything here is TPU-shaped: the mesh box [nz, ny, nx] is
+Everything here is data-parallel: the mesh box [nz, ny, nx] is
 reconstructed from the band offsets {1, nx, nx*ny}, restriction /
 prolongation are reshape-sums / repeats (piecewise-constant
 aggregation, Galerkin coarse operators computed by masked aggregate

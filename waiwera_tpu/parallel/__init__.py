@@ -1,6 +1,6 @@
 """Multi-device domain decomposition.
 
-The TPU-native counterpart of the reference's MPI parallelism
+The JAX counterpart of the reference's MPI parallelism
 (DMPlexDistribute with overlap 1, PetscSF halo exchange —
 mesh.F90:143-171, dm_utils.F90:1343-1448): cells are partitioned into
 per-device blocks by recursive coordinate bisection, each device holds

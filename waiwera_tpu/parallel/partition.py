@@ -133,7 +133,10 @@ def _rcb(
     n_left_parts = num_parts // 2
     frac = n_left_parts / num_parts
     span = centroids[ids].max(axis=0) - centroids[ids].min(axis=0)
-    axis = int(np.argmax(span))
+    # ties (equal extents up to centroid rounding) go to the lowest
+    # axis, so sibling halves of a rectilinear box split alike and the
+    # parts stay congruent slabs (device-uniform banded face plans)
+    axis = int(np.argmax(span >= span.max() * (1.0 - 1e-9)))
     order = ids[np.argsort(centroids[ids, axis], kind="stable")]
     if weights is None:
         k = int(round(len(ids) * frac))

@@ -20,7 +20,7 @@ source_network.F90:91-127). Preconditioners: bjacobi and the local
 shift/split DILU, which with overlap-1 halos and identity halo rows
 acts as restricted additive Schwarz — the reference's ASM/ILU0 default
 (timestepper.F90:1743-1835). SpMV uses a hybrid layout: the owned-owned
-couplings go through the banded DIA path (Pallas kernel on TPU) when
+couplings go through the banded DIA path when
 the partition preserves bandedness, plus a thin gathered halo-edge
 correction; unstructured partitions fall back to ELL.
 """
@@ -201,6 +201,7 @@ class LocalSystem(System):
                 prod = jnp.einsum(
                     "kij,kj->ki", hdata,
                     xs[self.halo_cols].astype(hdata.dtype),
+                    precision=lax.Precision.HIGHEST,
                 )
                 y = y.at[self.halo_rows].add(prod)
                 return jnp.where(self.owned[:, None], y, 0.0)
@@ -286,13 +287,6 @@ class LocalSystem(System):
             )
         )
 
-    def interleaved_solver_ops(self, parts, pc_name, dtype=None):
-        """Not eligible: the distributed matvec's halo tail (cross-
-        device edges gathered/scattered by natural row index) lives in
-        the natural layout; the banded fast path below already covers
-        the owned-owned blocks."""
-        return None
-
     def linear_operator_from_parts(
         self, parts, pc_name, dtype=None, sweeps=3
     ):
@@ -325,10 +319,7 @@ class LocalSystem(System):
             if dtype is None or m64.bands.dtype == dtype
             else m64._replace(bands=m64.bands.astype(dtype))
         )
-        if ops_dia._use_pallas(m.bands.dtype):
-            base_mv = ops_dia._interleave_bands(m).matvec
-        else:
-            base_mv = m.matvec
+        base_mv = m.matvec
         fl_ = self.face_plan.f_live
         lr_t = lr2[:, fl_:]
         rl_t = rl2[:, fl_:]
@@ -563,7 +554,7 @@ class DistributedSystem:
         )
 
         # --- hybrid banded SpMV: owned-owned couplings as DIA bands
-        # (Pallas on TPU) + a thin gathered halo-edge correction.
+        # + a thin gathered halo-edge correction.
         # Band offsets must be identical (static) across devices; take
         # the union, falling back to ELL if it exceeds the band cap.
         from waiwera_tpu.ops import dia as ops_dia
@@ -590,8 +581,9 @@ class DistributedSystem:
             )
         if len(off_union) <= ops_dia.MAX_BANDS:
             offs = np.array(sorted(off_union), np.int64)
-            n_pad = -(-plan.n_local // ops_dia._TILE) * ops_dia._TILE
-            band_pos = np.full((D, len(offs), n_pad), nnzb, np.int64)
+            band_pos = np.full(
+                (D, len(offs), plan.n_local), nnzb, np.int64
+            )
             for d, st in enumerate(structs):
                 r = np.asarray(st.rows)
                 c = np.asarray(st.indices)
@@ -626,8 +618,7 @@ class DistributedSystem:
         # rectilinear meshes, the production geometry — the plan is a
         # static constant under shard_map and the local Jacobian packs
         # into DIA bands by reshape/pad with NO BSR scatter+gather
-        # round-trip, matching the single-device fast path (r4: that
-        # round-trip cost ~1.5 s/Newton iteration at 512k cells).
+        # round-trip, matching the single-device fast path.
         # Halo-like slots are passed as "ghost" so owned->halo
         # couplings stay OUT of the bands: the band SpMV then has no
         # dependency on the halo exchange (overlap preserved).
@@ -1059,7 +1050,9 @@ class DistributedSimulation:
     def dof_statistics(self) -> dict:
         """Per-device DOF distribution + Kumar imbalance
         (flow_simulation.F90:2998-3019): interior (non-boundary-ghost)
-        owned cells per device times unknowns/cell."""
+        owned cells per device times unknowns/cell. banded: whether
+        every device packs its Jacobian by the common gather-free band
+        plan."""
         plan = self.dist.plan
         is_ghost = np.asarray(self.base.mesh.is_ghost, bool)
         owned_interior = np.array([
@@ -1076,6 +1069,10 @@ class DistributedSimulation:
             "min": dmin,
             "max": dmax,
             "imbalance": (dmax - dmin) / dmin if dmin else 0.0,
+            "banded": (
+                self.dist._face_plan_common is not None
+                and self.dist._hybrid_common is not None
+            ),
         }
 
     def lhs_at(self, y, region):

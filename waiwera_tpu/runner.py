@@ -6,7 +6,7 @@ job is to run Waiwera conveniently from Python or a console script
 arguments, and report the package version
 (pywaiwera/docker.py:538-614, 671-760; pywaiwera/common.py:6).
 
-The TPU build needs no container: the runtime environment IS the
+This build needs no container: the runtime environment IS the
 Python environment. This module reproduces the useful surface —
 
 - run_waiwera(filename, ...): programmatic run (the
@@ -76,7 +76,7 @@ def main(argv=None):
     )
     parser = argparse.ArgumentParser(
         description=(
-            "Runs Waiwera-TPU, the TPU-native parallel geothermal "
+            "Runs waiwera_tpu, the JAX parallel geothermal "
             "flow simulator"
         ),
         epilog=examples,
@@ -93,7 +93,7 @@ def main(argv=None):
     )
     parser.add_argument(
         "--platform", default=None,
-        help="JAX platform override (tpu/cpu)",
+        help="JAX platform override (cpu/gpu)",
     )
     parser.add_argument(
         "-v", "--version", action="store_true",

@@ -1,6 +1,6 @@
 """Source network: controls, separators, groups and reinjectors.
 
-TPU-native counterpart of the reference's source network subsystem
+JAX counterpart of the reference's source network subsystem
 (source_control.F90, separator.F90, source_network_node.F90,
 source_network_group.F90, source_network_reinjector.F90,
 source_network.F90, source_setup.F90). The reference updates the

@@ -709,7 +709,9 @@ class Simulation:
 
     def dof_statistics(self) -> dict:
         """DOF totals + per-device imbalance (Kumar et al. 1994),
-        flow_simulation.F90:2998-3019. Single device: no imbalance."""
+        flow_simulation.F90:2998-3019. Single device: no imbalance.
+        banded: whether the Jacobian packs into DIA bands without a
+        BSR scatter and gather (pure or hybrid band plan)."""
         n = int(self.mesh.num_interior_cells)
         npv = self.eos.num_primary_variables
         return {
@@ -717,4 +719,8 @@ class Simulation:
             "min": n * npv,
             "max": n * npv,
             "imbalance": 0.0,
+            "banded": (
+                self.system.band_plan is not None
+                or self.system.hybrid is not None
+            ),
         }

@@ -152,16 +152,12 @@ class Timestepper:
             update_atol=float(opt(utol, "absolute", 1.0)),
             linear_method=str(opt(lin, "type", "bcgs")).lower(),
             # default bjacobi, diverging from the reference's
-            # ASM/ILU(0) (timestepper.F90:2019-2022) on measured TPU
-            # data. r5 sweep at 131k cells, true-residual-verified
-            # (safeguarded BiCGStab): bjacobi 0.49 s/step (2 Newton,
-            # 202 Krylov its) vs dilu 1.16 s (1027 its), z-line
-            # block-tridiagonal 0.69 s (7 Newton — line subsystem
-            # near-singular at depth), CPR pressure-MG 1.50 s (1228
-            # its; the aggregation V-cycle is counterproductive on
-            # late-Newton two-phase Jacobians, identically in f32 and
-            # f64). "asm"/"ilu"/"line"/"cpr" still select those paths
-            # when configured explicitly.
+            # ASM/ILU(0) (timestepper.F90:2019-2022): it is exact
+            # block-Jacobi under any domain decomposition, so Krylov
+            # counts do not depend on the device count. The choice has
+            # not been measured on the GPU yet. "asm"/"ilu"/"line"/
+            # "cpr" still select those paths when configured
+            # explicitly.
             linear_pc=str(
                 opt(lin.get("preconditioner", {}) or {}, "type", "bjacobi")
             ).lower(),
@@ -183,7 +179,7 @@ class Timestepper:
                 )
             ),
             # extension over the reference: precision of the inner
-            # Krylov solve (f32 is hardware-native on TPU; the Newton
+            # Krylov solve (f32 halves the bytes it streams; the Newton
             # loop stays f64)
             linear_dtype=str(opt(lin, "dtype", "float64")).lower(),
             jacobian_dtype=str(

@@ -164,9 +164,9 @@ def solve(
     is_ghost = mesh.is_ghost
 
     # face gather/scatter: plan-based slicing when the simulation's
-    # System detected the periodic face structure (indexed gathers run
-    # far below HBM bandwidth on TPU and would dominate the aux
-    # matvec, which runs once per Krylov iteration)
+    # System detected the periodic face structure (slices stream;
+    # indexed gathers and scatter-adds would sit in the aux matvec,
+    # which runs once per Krylov iteration)
     if (
         system is not None
         and getattr(system, "face_plan", None) is not None

@@ -7,8 +7,7 @@ per cell, 1..4).
 
 The sparsity pattern is static (mesh connectivity), built once on host;
 only `data` is recomputed each Newton iteration, so SpMV jits into a
-gather + batched small matmul + segment-sum, which XLA fuses well. A
-Pallas kernel path can slot in behind the same interface.
+gather + batched small matmul + segment-sum, which XLA fuses well.
 """
 
 from __future__ import annotations
@@ -41,7 +40,9 @@ class BSRMatrix(NamedTuple):
         """y = A @ x with x, y of shape [N, b]."""
         s = self.structure
         xg = x[s.indices]  # [nnzb, b]
-        prod = jnp.einsum("kij,kj->ki", self.data, xg)  # [nnzb, b]
+        prod = jnp.einsum(
+            "kij,kj->ki", self.data, xg, precision=jax.lax.Precision.HIGHEST
+        )  # [nnzb, b]
         y = jnp.zeros_like(x)
         return y.at[s.rows].add(prod)
 

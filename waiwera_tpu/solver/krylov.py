@@ -20,6 +20,15 @@ from jax import lax
 
 Array = jnp.ndarray
 
+# f32 contractions run in full f32: without it a GPU may take them in
+# TF32, which keeps ~3 of float32's ~7 significant digits
+_HIGHEST = lax.Precision.HIGHEST
+
+
+def _mm(a: Array, b: Array) -> Array:
+    return jnp.matmul(a, b, precision=_HIGHEST)
+
+
 DEFAULT_RTOL = 1e-5  # PETSc KSP default relative tolerance
 DEFAULT_ATOL = 1e-50
 
@@ -68,7 +77,7 @@ def bicgstab(
         precond = lambda v: v
 
     def _dot(a: Array, b_: Array) -> Array:
-        return reduce_sum(jnp.vdot(a, b_))
+        return reduce_sum(jnp.vdot(a, b_, precision=_HIGHEST))
 
     def _norm(a: Array) -> Array:
         return jnp.sqrt(jnp.real(_dot(a, a)))
@@ -145,7 +154,7 @@ def gmres(
     """Right-preconditioned restarted GMRES(m).
 
     Arnoldi with two-pass classical Gram-Schmidt (CGS2): fully
-    vectorised over the basis, which maps to batched matmuls on TPU
+    vectorised over the basis, which maps to matrix-vector products
     rather than a sequential MGS scan. reduce_sum as in bicgstab: all
     basis contractions are local matmuls + one cross-device reduction.
 
@@ -162,7 +171,7 @@ def gmres(
     v_dtype = b.dtype if basis_dtype is None else jnp.dtype(basis_dtype)
 
     def _dot(a: Array, b_: Array) -> Array:
-        return reduce_sum(jnp.vdot(a, b_))
+        return reduce_sum(jnp.vdot(a, b_, precision=_HIGHEST))
 
     def _norm(a: Array) -> Array:
         return jnp.sqrt(jnp.real(_dot(a, a)))
@@ -199,12 +208,12 @@ def gmres(
             # Mixed-dtype contractions promote to b.dtype, so H and
             # the correction arithmetic keep full precision even with
             # an f32-stored basis.
-            h1 = reduce_sum(V @ w)  # [m+1]
-            w = w - V.T @ h1
-            h2 = reduce_sum(V @ w)
-            w = w - V.T @ h2
+            h1 = reduce_sum(_mm(V, w))  # [m+1]
+            w = w - _mm(V.T, h1)
+            h2 = reduce_sum(_mm(V, w))
+            w = w - _mm(V.T, h2)
             h = h1 + h2
-            wnorm = jnp.sqrt(reduce_sum(w @ w))
+            wnorm = jnp.sqrt(reduce_sum(_mm(w, w)))
             H_new = H.at[:, j].set(h)
             H_new = H_new.at[j + 1, j].set(wnorm)
             V_new = V.at[j + 1].set(
@@ -217,12 +226,12 @@ def gmres(
         V, H, _ = lax.fori_loop(0, m, body, (V, H, False))
 
         # solve least squares min ||beta e1 - H y|| by Givens rotations
-        # (no LAPACK custom calls: TPU has no f64 QR/SVD)
+        # (no LAPACK custom calls for an (m+1) x m system)
         from waiwera_tpu.solver.smallblocks import hessenberg_lstsq_res
 
         y, res_profile = hessenberg_lstsq_res(H, beta, m)
         y = y.astype(b.dtype)
-        dx = V[:m].T @ y  # [n]
+        dx = _mm(V[:m].T, y)  # [n]
         x_new = x + precond(unflat(dx))
         # true inner-iteration count: the GMRES residual after j+1
         # Arnoldi steps is res_profile[j] (monotone), so the final
@@ -298,7 +307,7 @@ def lgmres(
     v_dtype = b.dtype if basis_dtype is None else jnp.dtype(basis_dtype)
 
     def _dot(a: Array, b_: Array) -> Array:
-        return reduce_sum(jnp.vdot(a, b_))
+        return reduce_sum(jnp.vdot(a, b_, precision=_HIGHEST))
 
     def _norm(a: Array) -> Array:
         return jnp.sqrt(jnp.real(_dot(a, a)))
@@ -340,12 +349,12 @@ def lgmres(
                 q = jnp.where(use_z, qz, q)
             w = flat(matvec(unflat(q)))
             # CGS2 against the full basis (rows > j are zero)
-            h1 = reduce_sum(V @ w)
-            w = w - V.T @ h1
-            h2 = reduce_sum(V @ w)
-            w = w - V.T @ h2
+            h1 = reduce_sum(_mm(V, w))
+            w = w - _mm(V.T, h1)
+            h2 = reduce_sum(_mm(V, w))
+            w = w - _mm(V.T, h2)
             h = h1 + h2
-            wnorm = jnp.sqrt(reduce_sum(w @ w))
+            wnorm = jnp.sqrt(reduce_sum(_mm(w, w)))
             H_new = H.at[:, j].set(h)
             H_new = H_new.at[j + 1, j].set(wnorm)
             V_new = V.at[j + 1].set(
@@ -357,13 +366,13 @@ def lgmres(
         V, H, Q, _ = lax.fori_loop(0, m, body, (V, H, Q, False))
         y, res_profile = hessenberg_lstsq_res(H, beta, m)
         y = y.astype(b.dtype)
-        dx = Q.T @ y  # [n] — Q columns already in solution space
+        dx = _mm(Q.T, y)  # [n] — Q columns already in solution space
         x_new = x + unflat(dx)
         inner = jnp.minimum(
             jnp.sum(res_profile > tol).astype(jnp.int32) + 1, m
         )
         if k_aug > 0:
-            dxn = jnp.sqrt(reduce_sum(dx @ dx))
+            dxn = jnp.sqrt(reduce_sum(_mm(dx, dx)))
             z_new = dx / jnp.where(dxn > tiny, dxn, 1.0)
             Z = jnp.roll(Z, 1, axis=0).at[0].set(z_new)
             nz = jnp.minimum(nz + 1, k_aug)
@@ -419,7 +428,7 @@ def bicgstab_l(
     L = int(ell)
 
     def _dot(a: Array, b_: Array) -> Array:
-        return reduce_sum(jnp.vdot(a, b_))
+        return reduce_sum(jnp.vdot(a, b_, precision=_HIGHEST))
 
     def _norm(a: Array) -> Array:
         return jnp.sqrt(jnp.real(_dot(a, a)))

@@ -55,10 +55,9 @@ class NewtonParams(NamedTuple):
     # jitted loop
     monitor: bool = False
     # precision of the inner Krylov solve. "float32" runs the
-    # dominant-cost SpMV/preconditioner loop in hardware-native f32
-    # (TPUs emulate f64 in software); the Newton residual, Jacobian
-    # and convergence tests stay f64, so this is classic
-    # mixed-precision inexact Newton.
+    # SpMV/preconditioner loop in f32, halving its bytes; the Newton
+    # residual, Jacobian and convergence tests stay f64, so this is
+    # classic mixed-precision inexact Newton.
     linear_dtype: str = "float64"
     # precision of the Jacobian tangent chains (EOS/flux derivatives
     # and block assembly). "float32" keeps the residual f64 but
@@ -98,9 +97,8 @@ class NewtonResult(NamedTuple):
     worst_cell: Array  # int32
     worst_equation: Array  # int32
     # state at the final iterate, carried out of the loop so the step
-    # wrapper does not re-run the f64 EOS chain (~75 ms/step on the
-    # 512k-cell flagship) just to reproduce what the last iteration
-    # already computed
+    # wrapper does not re-run the f64 EOS chain just to reproduce what
+    # the last iteration already computed
     fluid: object = None  # FluidState pytree
     lhs: Array = None  # [N, npv] balances at y
     fluxes: Array = None  # [F, nflux] face fluxes at y
@@ -131,7 +129,7 @@ def newton_solve(
     residual reuses them and only re-evaluates the (cheap,
     time-dependent) source-network inflows instead of running the full
     f64 EOS chain at a state whose properties are already known — the
-    TPU-shaped analogue of the reference's cached balance/flux reuse
+    analogue of the reference's cached balance/flux reuse
     (flow_simulation.F90:851-878, 1429-1444). Callers MUST NOT pass it
     when rock differs from the rock those values were computed with
     (rock controls).
@@ -248,8 +246,7 @@ def newton_solve(
     def body(s: _State):
         # Jacobian at current iterate (block parts: the banded path
         # packs DIA bands by reshape/pad, skipping the BSR
-        # scatter+gather round-trip that cost ~1.5 s/iteration on the
-        # 512k-cell flagship). The residual at this iterate is s.r,
+        # scatter+gather round-trip). The residual at this iterate is s.r,
         # carried from the post-linesearch recompute below (or the
         # pre-loop evaluation), so the Jacobian call does NOT
         # re-evaluate the f64 residual chain; EOS domain errors at
@@ -261,29 +258,15 @@ def newton_solve(
                 tangent_dtype=jacobian_dtype,
             )
         with jax.named_scope("linear_solve"):
-            # interleaved-domain solve when eligible: the whole Krylov
-            # iteration runs in the Pallas band layout (encode the RHS
-            # once, decode the solution once) instead of paying 4
-            # relayout passes per matvec
-            il_ops = system.interleaved_solver_ops(
-                parts, params.linear_pc, dtype=linear_dtype
+            mv, pc = system.linear_operator_from_parts(
+                parts,
+                params.linear_pc,
+                dtype=linear_dtype,
+                sweeps=params.pc_sweeps,
             )
-            if il_ops is not None:
-                mv, pc, enc, dec = il_ops
-                b_lin = enc(s.r)
-            else:
-                mv, pc = system.linear_operator_from_parts(
-                    parts,
-                    params.linear_pc,
-                    dtype=linear_dtype,
-                    sweeps=params.pc_sweeps,
-                )
-                dec = None
-                b_lin = (
-                    s.r
-                    if linear_dtype is None
-                    else s.r.astype(linear_dtype)
-                )
+            b_lin = (
+                s.r if linear_dtype is None else s.r.astype(linear_dtype)
+            )
             lin = krylov.solve(
                 params.linear_method,
                 mv,
@@ -296,10 +279,9 @@ def newton_solve(
                 ell=params.linear_ell,
                 reduce_sum=system.reduce_sum,
             )
-            x_lin = lin.x if dec is None else dec(lin.x)
         # halo slots of the Krylov solution are not solved locally;
         # pull them from their owner before the pointwise update
-        dy = system.sync(x_lin.astype(s.y.dtype))
+        dy = system.sync(lin.x.astype(s.y.dtype))
         y_raw = s.y - dy
 
         # post-linesearch: transitions + primary bounds (the

@@ -4,8 +4,8 @@ Replacements for the PC types Waiwera uses (timestepper.F90:1743-1835):
 - block-Jacobi at cell-block granularity (exact small-block inverse)
 - block ILU(0) with fixed-point (Jacobi-style) triangular sweeps: the
   sequential SpTRSV the reference gets from PETSc ILU is replaced by a
-  few data-parallel relaxation sweeps, which map far better onto the
-  TPU's vector units than a level-scheduled solve.
+  few data-parallel relaxation sweeps, which map far better onto an
+  accelerator than a level-scheduled solve.
 - none
 """
 
@@ -23,6 +23,8 @@ from waiwera_tpu.solver.smallblocks import invert_blocks
 
 Array = jnp.ndarray
 
+_HIGHEST = lax.Precision.HIGHEST  # f32 contractions in full f32, not TF32
+
 
 def block_jacobi(
     matrix: BSRMatrix, dtype=None
@@ -30,14 +32,15 @@ def block_jacobi(
     """z = D^{-1} r with D the cell-diagonal blocks.
 
     dtype: apply in this precision (inversion stays f64 for
-    robustness; the apply is cast — f32 on TPU where f64 is
-    software-emulated)."""
+    robustness; only the apply is cast)."""
     inv = invert_blocks(matrix.diag_blocks())  # [N, b, b]
     if dtype is not None:
         inv = inv.astype(dtype)
 
     def apply(r: Array) -> Array:
-        return jnp.einsum("nij,nj->ni", inv, r.astype(inv.dtype))
+        return jnp.einsum(
+            "nij,nj->ni", inv, r.astype(inv.dtype), precision=_HIGHEST
+        )
 
     return apply
 
@@ -114,6 +117,7 @@ def dilu(matrix: BSRMatrix, split: ILU0Data, sweeps: int = 3, dtype=None):
         lower,
         inv0[split.lower_cols],
         trans,
+        precision=_HIGHEST,
     )
     dmod = diag.at[split.lower_rows].add(-corr)
     dinv = invert_blocks(dmod)
@@ -125,13 +129,18 @@ def dilu(matrix: BSRMatrix, split: ILU0Data, sweeps: int = 3, dtype=None):
     def apply(r: Array) -> Array:
         r = r.astype(dinv.dtype)
         # forward: (D~ + L) y = r  via fixed-point y = D~^{-1}(r - L y)
-        y = jnp.einsum("nij,nj->ni", dinv, r)
+        y = jnp.einsum("nij,nj->ni", dinv, r, precision=_HIGHEST)
 
         def fwd(_, y):
             ly = jnp.zeros_like(r)
-            prod = jnp.einsum("kij,kj->ki", lower, y[split.lower_cols])
+            prod = jnp.einsum(
+                "kij,kj->ki", lower, y[split.lower_cols],
+                precision=_HIGHEST,
+            )
             ly = ly.at[split.lower_rows].add(prod)
-            return jnp.einsum("nij,nj->ni", dinv, r - ly)
+            return jnp.einsum(
+                "nij,nj->ni", dinv, r - ly, precision=_HIGHEST
+            )
 
         y = lax.fori_loop(0, sweeps, fwd, y)
 
@@ -140,9 +149,14 @@ def dilu(matrix: BSRMatrix, split: ILU0Data, sweeps: int = 3, dtype=None):
 
         def bwd(_, z):
             uz = jnp.zeros_like(r)
-            prod = jnp.einsum("kij,kj->ki", upper, z[split.upper_cols])
+            prod = jnp.einsum(
+                "kij,kj->ki", upper, z[split.upper_cols],
+                precision=_HIGHEST,
+            )
             uz = uz.at[split.upper_rows].add(prod)
-            return y - jnp.einsum("nij,nj->ni", dinv, uz)
+            return y - jnp.einsum(
+                "nij,nj->ni", dinv, uz, precision=_HIGHEST
+            )
 
         z = lax.fori_loop(0, sweeps, bwd, z)
         return z

@@ -1,8 +1,8 @@
 """Batched small-block (1x1..4x4) linear algebra in pure jnp.
 
-TPU XLA has no f64 LU/QR/SVD custom calls, and the Jacobian blocks are
-tiny (block size = number of primary variables, 1..4), so closed-form
-adjugate inverses are both necessary and faster than library calls.
+The Jacobian blocks are tiny (block size = number of primary
+variables, 1..4), so closed-form adjugate inverses vectorise over
+millions of blocks where batched library factorisations would not.
 """
 
 from __future__ import annotations
@@ -94,10 +94,8 @@ def invert_blocks(a: Array) -> Array:
 
 # ---------------------------------------------------------------------
 # Element-major ("em") block kernels: blocks stored as [b*b, N] with
-# the batch axis LAST. On TPU a materialised [N, b, b] array is tiled
-# T(4,128) on its trailing dims — a 57x memory expansion at b=3
-# (measured r4: 3 GB per flagship block array, an OOM) — while
-# [b*b, N] keeps the long axis on lanes at native density. Row i*b+j
+# the batch axis LAST, so each block element is one contiguous [N]
+# vector and every kernel is b*b-way elementwise arithmetic. Row i*b+j
 # holds block element (i, j).
 # ---------------------------------------------------------------------
 

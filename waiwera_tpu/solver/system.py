@@ -96,9 +96,9 @@ class System:
         self.dia = dia.dia_structure(
             self.structure, np.asarray(mesh.is_ghost)
         )
-        # gather-free band packing recipe (TPU gathers are ~100x slower
-        # than streaming HBM reads; measured r4: the BSR->band gather
-        # cost 1.5 s/Newton iteration on the 512k-cell flagship)
+        # gather-free band packing recipe: the Jacobian's block parts
+        # pack into bands by reshape/pad, with no BSR scatter + gather
+        # round trip
         self.band_plan = (
             dia.band_plan(
                 self.dia, face_cells, np.asarray(mesh.is_ghost)
@@ -107,8 +107,7 @@ class System:
             else None
         )
         # periodic-slice face gather/scatter (canonical face order):
-        # face-state gathers and inflow scatter-adds were ~0.85 s of
-        # the f64 RHS on the 512k-cell flagship before this
+        # face-state gathers and inflow scatter-adds become slices
         self.face_plan = (
             dia.face_plan(self.band_plan, self.dia.offsets)
             if self.band_plan is not None
@@ -292,13 +291,10 @@ class System:
     def make_matvec(self, mat, dtype=None):
         """SpMV closure for the Krylov solve: assembled BSR data is
         re-laid-out once (amortised over the Krylov iterations) into
-        scatter-free DIA bands (banded/structured meshes; Pallas
-        kernel on TPU, pre-packed in its interleaved layout) or ELL
+        scatter-free DIA bands (banded/structured meshes) or ELL
         (ops.ell, unstructured), optionally down-cast (f32 inner
-        solves on TPU)."""
+        solves)."""
         if self.dia is not None:
-            if dia._use_pallas(dtype):
-                return dia.to_dia_pallas(mat, self.dia, dtype).matvec
             return dia.to_dia(mat, self.dia, dtype).matvec
         return ell.to_ell(mat, self.ell, dtype).matvec
 
@@ -311,9 +307,7 @@ class System:
 
         if self.dia is not None:
             m64 = dia.to_dia(mat, self.dia)
-            if dia._use_pallas(dtype):
-                m = dia.to_dia_pallas(mat, self.dia, dtype)
-            elif dtype is None:
+            if dtype is None:
                 m = m64
             else:
                 m = m64._replace(bands=m64.bands.astype(dtype))
@@ -487,13 +481,13 @@ class System:
 
         tangent_dtype=float32: evaluate the Jacobian chain (EOS
         property tangents, flux tangents, block assembly) in f32 while
-        the residual stays f64. TPUs emulate f64 in software, and the
-        Jacobian only steers the Newton direction (the reference's own
-        Jacobian is FD noise-limited to ~1e-8, timestepper.F90:1626),
-        so f32 tangents (~1e-6 relative) preserve quadratic-ish
-        convergence at a fraction of the assembly cost. Implemented by
-        tracing the same code under jax.enable_x64(False), which
-        downcasts every array and constant in the chain.
+        the residual stays f64. The Jacobian only steers the Newton
+        direction (the reference's own Jacobian is FD noise-limited to
+        ~1e-8, timestepper.F90:1626), so f32 tangents (~1e-6 relative)
+        preserve quadratic-ish convergence at a fraction of the
+        assembly cost. Implemented by tracing the same code under
+        jax.enable_x64(False), which downcasts every array and constant
+        in the chain.
         """
         r, L, fluxes, err, parts = self.residual_and_jacobian_parts(
             y, region, rock, coeffs, t0, t1, tangent_dtype=tangent_dtype
@@ -505,10 +499,9 @@ class System:
         [b*b,F], J[r,l] [b*b,F]) into BSR data.
 
         Only needed off the banded fast path (ELL matvec, LU, FD
-        validation): on TPU this scatter plus the band gather it feeds
-        cost ~1.5 s per 512k-cell Jacobian, so the Newton hot path
-        keeps the parts form and packs bands directly
-        (linear_operator_from_parts)."""
+        validation): the Newton hot path keeps the parts form and packs
+        bands directly (linear_operator_from_parts), skipping this
+        scatter and the band gather it would feed."""
         from waiwera_tpu.solver.smallblocks import batch_from_em
 
         diag2, lr2, rl2 = parts
@@ -559,9 +552,8 @@ class System:
 
         The Newton loop carries the residual from its post-linesearch
         recompute, so re-evaluating it at the same iterate inside the
-        Jacobian call would duplicate the costliest f64 EOS chain
-        (~0.9 s/iteration on the 512k-cell flagship). This is the
-        TPU-shaped counterpart of the reference's cached-balance reuse
+        Jacobian call would duplicate the costliest f64 EOS chain.
+        This is the counterpart of the reference's cached-balance reuse
         for its FD Jacobian (flow_simulation.F90:851-878,1429-1444).
         """
         if tangent_dtype is not None:
@@ -597,106 +589,6 @@ class System:
         # primal linearization point, so XLA CSEs the overlap; unused
         # outputs are dead-code eliminated
         return self._rj_core(y, region, rock, coeffs, t0, t1)[4]
-
-    def interleaved_solver_ops(self, parts, pc_name, dtype=None):
-        """(matvec_il, pc_il, encode, decode) for a Krylov solve run
-        ENTIRELY in the Pallas interleaved band layout, or None when
-        the configuration is not eligible.
-
-        The natural-layout matvec pays an encode + decode (4 relayout
-        passes over x/y) per application — measured 569 us/apply on
-        the 512k-cell flagship against ~200 us of actual band SpMV.
-        Since Krylov vectors only ever meet the operator, the
-        preconditioner and elementwise vector algebra, the whole solve
-        can stay interleaved: encode the RHS once, decode the solution
-        once. Dots/norms are exact because the padding rows stay zero
-        under every operation (matvec: padded bands are zero;
-        block-Jacobi: padded blocks are zero; axpys preserve zero).
-
-        Eligible: banded structure (band_plan) or the hybrid
-        banded+tail structure (MINC chains, irregular faces — the
-        tail's indexed gathers/scatters address the interleaved
-        buffer by flat index), bjacobi/none preconditioning, f32
-        vectors, Pallas enabled. Distributed LocalSystem overrides
-        with None (halo terms live in natural layout)."""
-        banded = self.dia is not None and self.band_plan is not None
-        if (
-            (not banded and self.hybrid is None)
-            or pc_name not in ("bjacobi", "jacobi", "none")
-        ):
-            return None
-        if dtype is None or jnp.dtype(dtype) != jnp.float32:
-            return None
-        if not dia._use_pallas(jnp.float32):
-            return None
-        from waiwera_tpu.solver.smallblocks import (
-            apply_blocks_em,
-            invert_blocks_em,
-        )
-
-        diag2, lr2, rl2 = parts
-        if banded:
-            m64 = dia.bands_from_blocks(
-                self.dia, self.band_plan, diag2, lr2, rl2, None
-            )
-        else:
-            synth_dia, synth_plan = self.hybrid
-            m64 = dia.bands_from_blocks(
-                synth_dia, synth_plan, diag2, lr2, rl2, None
-            )
-        m = (
-            m64
-            if m64.bands.dtype == jnp.float32
-            else m64._replace(bands=m64.bands.astype(jnp.float32))
-        )
-        pm = dia._interleave_bands(m)
-        nq = pm.n_pad // dia._Q
-        b = self.npv
-
-        if banded or int(self._tail_cl.shape[0]) == 0:
-            mv = pm.matvec_il
-        else:
-            # hybrid tail (MINC matrix chains, irregular faces): the
-            # same small indexed gathers as the natural-layout path,
-            # but addressing the interleaved buffer by flat index —
-            # cell c, component j lives at flat (j*8 + c%8)*nq + c//8
-            fl_ = self.face_plan.f_live
-            lr_t = lr2[:, fl_:].astype(jnp.float32)
-            rl_t = rl2[:, fl_:].astype(jnp.float32)
-
-            def il_idx(cells):
-                c = cells.astype(jnp.int32)
-                rows = (c % dia._Q)[None, :] + dia._Q * jnp.arange(
-                    b, dtype=jnp.int32
-                )[:, None]  # [b, T]
-                return rows * nq + (c // dia._Q)[None, :]
-
-            idx_l = il_idx(self._tail_cl)  # [b, T]
-            idx_r = il_idx(self._tail_cr)
-
-            def mv(x_il):
-                y_il = pm.matvec_il(x_il)
-                xf = x_il.reshape(-1)
-                xl = xf[idx_l].T  # [T, b]
-                xr = xf[idx_r].T
-                add_l = apply_blocks_em(lr_t, xr)  # [T, b]
-                add_r = apply_blocks_em(rl_t, xl)
-                yf = y_il.reshape(-1)
-                yf = yf.at[idx_l.T.reshape(-1)].add(add_l.reshape(-1))
-                yf = yf.at[idx_r.T.reshape(-1)].add(add_r.reshape(-1))
-                return yf.reshape(y_il.shape)
-
-        if pc_name == "none":
-            pc = lambda r: r
-        else:
-            # factor in the parts' dtype (f64 path keeps full
-            # precision), apply in f32 (make_linear_operator contract)
-            dinv2 = invert_blocks_em(diag2)
-            pc = dia.il_block_jacobi_em(dinv2, pm.n_pad, jnp.float32)
-        n = self.structure.num_rows
-        enc = lambda r: dia.il_encode(r, pm.n_pad)
-        dec = lambda y: dia.il_decode(y, n)
-        return mv, pc, enc, dec
 
     def linear_operator_from_parts(
         self, parts, pc_name, dtype=None, sweeps=3
@@ -740,10 +632,7 @@ class System:
             if dtype is None or m64.bands.dtype == dtype
             else m64._replace(bands=m64.bands.astype(dtype))
         )
-        if dia._use_pallas(m.bands.dtype):
-            base_mv = dia._interleave_bands(m).matvec
-        else:
-            base_mv = m.matvec
+        base_mv = m.matvec
         if banded or int(self._tail_cl.shape[0]) == 0:
             mv = base_mv
         else:
@@ -782,12 +671,10 @@ class System:
         elif pc_name in ("cpr", "cprmg"):
             # CPR: geometric multigrid V-cycle on the pressure block
             # + block-Jacobi correction (ops/mg.py). NON-DEFAULT:
-            # strong on mild systems (6 vs 38 BiCGStab its measured),
-            # but on the flagship's late-Newton two-phase Jacobians
-            # the Jacobi-smoothed aggregation V-cycle is
-            # counterproductive (measured r5: 1228 its / 5 Newton vs
-            # bjacobi 202 / 2, identical in f32 and f64 — not a
-            # precision effect). bjacobi stays the default.
+            # fewer BiCGStab iterations than bjacobi on mild systems
+            # (test_cpr_mg_preconditioner), but on late-Newton two-phase
+            # Jacobians the Jacobi-smoothed aggregation V-cycle can
+            # need more. bjacobi stays the default.
             from waiwera_tpu.ops import mg as ops_mg
 
             built = ops_mg.pressure_levels(m64, dtype=dtype)
@@ -855,9 +742,7 @@ class System:
         # primal + npv cell-local tangents of the derived state.
         # jax.linearize evaluates the (expensive EOS) primal chain ONCE
         # and replays only the linear tangent ops per seed — npv
-        # separate jax.jvp calls would re-evaluate the primal npv times
-        # (measured r4: ~2.5 s assembly on the 512k-cell flagship,
-        # dominated by redundant primal EOS chains).
+        # separate jax.jvp calls would re-evaluate the primal npv times.
         (fluid, cond0), derived_lin = jax.linearize(derived_flat, y)
         _, _, err = self.derived_state(y, region, rock)
         d_fluid = []
@@ -951,10 +836,9 @@ class System:
         r = jnp.where(mesh.is_ghost[:, None], 0.0, r)
 
         # -- assemble blocks, ELEMENT-MAJOR: parts are (diag2 [b*b,N],
-        # lr2 [b*b,F], rl2 [b*b,F]) with the long axis last. A
-        # materialised [F, 3, 3] array tiles to T(4,128) on TPU — a
-        # 57x padded buffer (3 GB at flagship size, the r4 OOM) — so
-        # block data lives as stacks of [N]/[F] vectors throughout.
+        # lr2 [b*b,F], rl2 [b*b,F]) with the long axis last, so block
+        # data lives as stacks of contiguous [N]/[F] vectors and the
+        # band packing is slicing along that axis.
         # J[i,j][e,v] = dr_i[e]/dy_j[v], row e*npv+v of the stack.
         area = mesh.face_area
         vol = jnp.where(mesh.cell_volume > 0.0, mesh.cell_volume, 1.0)

@@ -252,7 +252,7 @@ class InterpolationTable:
 class StackedTables:
     """k tables evaluated batched: one vmapped pass instead of k
     Python-loop evaluations with .at[i].set (which would otherwise
-    unroll into the traced residual; VERDICT weak #4).
+    unroll into the traced residual).
 
     Tables are padded to a common knot count by appending knots a tiny
     (1e-12-relative) epsilon past the last coordinate with the last
